@@ -3,12 +3,12 @@ fresh), compare logits against the float forward, and serve it — live or
 as an AOT artifact with the int8 weight tables baked in.
 
   python examples/quantize.py                 # small ViT, CPU-friendly
-  python examples/quantize.py --large         # ViT-L/16 @224 (TPU)
+  python examples/quantize.py --large         # ViT-L/16 @224 (on a GPU)
   python examples/quantize.py --mode w8       # weight-only int8
 
 The reference repo has no quantization story; here the whole encoder runs
 int8 x int8 -> int32 GEMMs with dynamic per-token activation scales
-(vit_tpu.ops.quant), and the artifact path reuses the same AOT export as
+(vitax.ops.quant), and the artifact path reuses the same AOT export as
 the float serving programs (utils/aot.py).
 """
 
@@ -23,12 +23,12 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--large", action="store_true", help="ViT-L/16 @224")
-    ap.add_argument("--mode", default="w8a8", choices=["w8a8", "w8", "w8a8_kernel"])
+    ap.add_argument("--mode", default="w8a8", choices=["w8a8", "w8", "auto"])
     ap.add_argument("--batch", type=int, default=8)
     args = ap.parse_args()
 
-    from vit_tpu.models import ViT
-    from vit_tpu.utils.quantize import quantize_vit, vit_apply_w8a8
+    from vitax.models import ViT
+    from vitax.utils.quantize import quantize_vit, vit_apply_w8a8
 
     cfg = (
         dict(image_size=224, patch_size=16, num_classes=1000, dim=1024,

@@ -1,14 +1,14 @@
 """Serving example: JPEG bytes -> logits, end to end.
 
   python examples/serve.py image1.jpg image2.jpg ...
-  python examples/serve.py --quantize auto image1.jpg    # fastest int8 mode per batch
+  python examples/serve.py --quantize auto image1.jpg    # the int8 mode vitax picks (w8)
   python examples/serve.py --quantize w8a8 image1.jpg    # int8 encoder GEMMs
   python examples/serve.py --quantize w8 image1.jpg      # weight-only int8
 
 Host side: native multithreaded libjpeg decode + bilinear resize
-(vit_tpu.data.JpegDecoder, C++ via ctypes, PIL fallback). Device side:
+(vitax.data.JpegDecoder, C++ via ctypes, PIL fallback). Device side:
 resize/crop/normalize fused into the same XLA program as the model
-(vit_tpu.pipeline.InferencePipeline) so one dispatch serves the request.
+(vitax.pipeline.InferencePipeline) so one dispatch serves the request.
 """
 
 import sys
@@ -25,9 +25,9 @@ def main():
         quantize = args[1]
         args = args[2:]
     paths = args
-    from vit_tpu.data import JpegDecoder, classify_jpegs
-    from vit_tpu.models import ViT
-    from vit_tpu.pipeline import InferencePipeline
+    from vitax.data import JpegDecoder, classify_jpegs
+    from vitax.models import ViT
+    from vitax.pipeline import InferencePipeline
 
     model = ViT(
         image_size=224, patch_size=16, num_classes=1000, dim=768,
@@ -38,15 +38,15 @@ def main():
                                            jnp.zeros((1, 224, 224, 3), jnp.bfloat16)))()
 
     apply_fn = None
-    if quantize in ("w8a8", "w8a8_kernel", "auto"):
+    if quantize in ("w8a8", "auto"):
         # int8 encoder GEMMs (dedicated ViT path: ops/quant.py)
-        from vit_tpu.utils.quantize import quantize_vit, vit_apply_w8a8
+        from vitax.utils.quantize import quantize_vit, vit_apply_w8a8
 
         variables = quantize_vit(variables)
         apply_fn = lambda v, x: vit_apply_w8a8(model, v, x, mode=quantize)
     elif quantize == "w8":
         # generic weight-only compression (works on any family)
-        from vit_tpu.utils.quantize import quantize_weights, quantized_apply
+        from vitax.utils.quantize import quantize_weights, quantized_apply
 
         variables = quantize_weights(variables)
         apply_fn = lambda v, x: quantized_apply(model, v, x, dtype=jnp.bfloat16)

@@ -2,14 +2,14 @@
 //
 // The data-loading front-end of the serving pipeline (PIPELINE: host JPEG
 // bytes -> this decoder -> fixed-size uint8 RGB batch -> device-side
-// resize/crop/normalize fused into the model program, vit_tpu/pipeline.py).
+// resize/crop/normalize fused into the model program, vitax/pipeline.py).
 // The reference has no data path at all (SURVEY.md §5); this is the
 // framework's native equivalent of a production loader: libjpeg decode and
 // resize run on host CPU threads with the GIL released (ctypes), so decode
 // overlaps device compute.
 //
 // Build: make -C native    (g++ -O3 -shared -fPIC ... -ljpeg -lpthread)
-// ABI: see vt_decode_jpeg_batch below; bound via ctypes in vit_tpu/data.py.
+// ABI: see vt_decode_jpeg_batch below; bound via ctypes in vitax/data.py.
 
 #include <cstddef>
 #include <cstdio>
@@ -36,14 +36,14 @@ void error_exit(j_common_ptr cinfo) {
   longjmp(err->setjmp_buffer, 1);
 }
 
-// Decode flags (must mirror vit_tpu/data.py).
+// Decode flags (must mirror vitax/data.py).
 constexpr int kDctScale = 1;  // IDCT-domain downscale to the smallest
                               // power-of-two size still >= out_size
 constexpr int kFastIdct = 2;  // JDCT_IFAST + plain (non-fancy) upsampling;
                               // measured NO gain on libjpeg-turbo (its
                               // ISLOW is already SIMD: 187 vs 196 img/s) —
                               // kept for plain-libjpeg hosts, not set by
-                              // vit_tpu's fast mode
+                              // vitax's fast mode
 
 // Decode one JPEG to an RGB buffer (h*w*3). Returns false on corrupt input.
 bool decode_one(const uint8_t* buf, size_t len, int out_size, int flags,
@@ -134,7 +134,7 @@ void resize_bilinear(const uint8_t* src, int h, int w, uint8_t* dst, int out) {
 
 extern "C" {
 
-// Bump when the exported signature changes; vit_tpu/data.py rebuilds any
+// Bump when the exported signature changes; vitax/data.py rebuilds any
 // .so whose version doesn't match (a stale binary would otherwise be
 // called with the wrong argument list).
 int vt_api_version() { return 2; }

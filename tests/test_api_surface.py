@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vit_tpu import models as M
+from vitax import models as M
 
 CASES = [
     ("vit", M.ViT,
@@ -105,7 +105,7 @@ def test_reference_main_config_constructs_and_shapes(name, cls, cfg, size):
 
 
 def test_efficient_shell_injects_any_encoder():
-    from vit_tpu.nn.blocks import Transformer
+    from vitax.nn.blocks import Transformer
 
     model = M.EfficientViT(
         image_size=256, patch_size=32, num_classes=1000, dim=512,
@@ -125,7 +125,7 @@ def test_efficient_shell_injects_any_encoder():
 # --- reference-scale presets (models/presets.py = docs/MODELS.md as code) ---
 
 def test_presets_cover_all_registry_families():
-    from vit_tpu.models import MODEL_REGISTRY, REFERENCE_PRESETS
+    from vitax.models import MODEL_REGISTRY, REFERENCE_PRESETS
 
     assert set(REFERENCE_PRESETS) == set(MODEL_REGISTRY)
 

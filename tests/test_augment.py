@@ -1,4 +1,4 @@
-"""Augmentation / regularizer tests (vit_tpu/augment.py).
+"""Augmentation / regularizer tests (vitax/augment.py).
 
 Everything must hold under jit with static shapes — these are in-graph
 batch ops meant to live inside the sharded train step.
@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vit_tpu import augment
-from vit_tpu.models import ViT
-from vit_tpu.models.levit import LeViT
-from vit_tpu.train import (
+from vitax import augment
+from vitax.models import ViT
+from vitax.models.levit import LeViT
+from vitax.train import (
     create_train_state,
     cross_entropy_loss,
     make_optimizer,
@@ -216,7 +216,7 @@ def test_grad_accumulation_bn_model():
 
 
 def test_evaluate_streams_dataset():
-    from vit_tpu.train import evaluate, make_eval_step
+    from vitax.train import evaluate, make_eval_step
 
     model = ViT(image_size=16, patch_size=8, num_classes=4, dim=32, depth=1,
                 heads=2, dim_head=16, mlp_dim=64)

@@ -1,6 +1,6 @@
 """Checkpoint subsystem: step management, retention, async save, and
-cross-topology restore (save on one mesh, resume on another) — the
-production TPU-pod resume path the reference has no counterpart for
+cross-topology restore (save on one mesh, resume on another) — a
+production resume path the reference has no counterpart for
 (SURVEY.md §5 checkpoint/resume row).
 """
 
@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from vit_tpu.models import ViT
-from vit_tpu.parallel import make_mesh
-from vit_tpu.train import create_train_state, make_train_step, shard_batch
-from vit_tpu.utils.checkpoint import (
+pytest.importorskip("orbax.checkpoint")  # the optional `checkpoint` extra
+
+from vitax.models import ViT
+from vitax.parallel import make_mesh
+from vitax.train import create_train_state, make_train_step, shard_batch
+from vitax.utils.checkpoint import (
     CheckpointManager,
     abstract_train_state,
     restore_checkpoint,

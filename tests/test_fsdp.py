@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import PartitionSpec as P
 
-from vit_tpu.models import ViT
-from vit_tpu.parallel import fsdp_param_specs, make_mesh
-from vit_tpu.train import create_train_state, make_train_step, shard_batch
+from vitax.models import ViT
+from vitax.parallel import fsdp_param_specs, make_mesh
+from vitax.train import create_train_state, make_train_step, shard_batch
 
 CFG = dict(image_size=32, patch_size=8, num_classes=4, dim=128, depth=2,
            heads=4, mlp_dim=256, dim_head=32)
@@ -101,7 +101,7 @@ def test_fsdp_shards_memory_and_matches_replicated_training():
 def test_fsdp_checkpoint_cross_topology(tmp_path):
     """An FSDP run checkpoints and restores onto a different mesh with
     fsdp placement re-derived for the new topology."""
-    from vit_tpu.utils.checkpoint import abstract_train_state, restore_checkpoint, save_checkpoint
+    from vitax.utils.checkpoint import abstract_train_state, restore_checkpoint, save_checkpoint
 
     devices = jax.devices()
     mesh_a = make_mesh(n_data=8, n_model=1, devices=devices[:8])

@@ -1,6 +1,6 @@
 """HF/torch ViT checkpoint interop: imported weights must reproduce the
 Hugging Face torch implementation's logits (the "switch ecosystems, keep
-your checkpoint" path — vit_tpu/utils/interop.py)."""
+your checkpoint" path — vitax/utils/interop.py)."""
 
 import numpy as np
 import pytest
@@ -24,7 +24,7 @@ def _hf_model(num_labels=10):
 
 
 def test_hf_vit_logit_parity():
-    from vit_tpu.utils.interop import vit_from_hf
+    from vitax.utils.interop import vit_from_hf
 
     hf = _hf_model()
     model, variables = vit_from_hf(hf)  # fp32 for strict comparison
@@ -41,7 +41,7 @@ def test_hf_vit_logit_parity():
 
 
 def test_hf_vit_config_mapping():
-    from vit_tpu.utils.interop import hf_vit_config
+    from vitax.utils.interop import hf_vit_config
 
     hf = _hf_model(num_labels=7)
     cfg = hf_vit_config(hf.config)
@@ -52,11 +52,11 @@ def test_hf_vit_config_mapping():
 
 
 def test_hf_import_runs_on_kernel_path():
-    """The imported tree must also apply under bf16 (the TPU kernel-path
-    config) — shapes/layout identical, only dtypes differ."""
+    """The imported tree must also apply under bf16 (the serving config) —
+    shapes/layout identical, only dtypes differ."""
     import jax.numpy as jnp
 
-    from vit_tpu.utils.interop import vit_from_hf
+    from vitax.utils.interop import vit_from_hf
 
     hf = _hf_model()
     model, variables = vit_from_hf(hf, dtype=jnp.bfloat16)
@@ -71,7 +71,7 @@ def test_bare_vitmodel_import_applies():
     at the config's num_labels width — apply works, logits are zeros."""
     from transformers import ViTConfig, ViTModel
 
-    from vit_tpu.utils.interop import vit_from_hf
+    from vitax.utils.interop import vit_from_hf
 
     cfg = ViTConfig(
         hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
@@ -90,8 +90,8 @@ def test_hf_import_quantizes():
     quantized forward tracks the float forward."""
     import jax
 
-    from vit_tpu.utils.interop import vit_from_hf
-    from vit_tpu.utils.quantize import quantize_vit, vit_apply_w8a8
+    from vitax.utils.interop import vit_from_hf
+    from vitax.utils.quantize import quantize_vit, vit_apply_w8a8
 
     hf = _hf_model()
     model, variables = vit_from_hf(hf)
@@ -110,7 +110,7 @@ def test_export_roundtrip_state_dict():
     bit-equal), so migration works in both directions."""
     from transformers import ViTForImageClassification
 
-    from vit_tpu.utils.interop import export_vit_to_hf, vit_from_hf
+    from vitax.utils.interop import export_vit_to_hf, vit_from_hf
 
     hf_a = _hf_model()
     _, variables = vit_from_hf(hf_a)
@@ -133,8 +133,8 @@ def test_export_native_vit_serves_from_torch():
     import jax.numpy as jnp
     from transformers import ViTConfig, ViTForImageClassification
 
-    from vit_tpu.models import ViT
-    from vit_tpu.utils.interop import export_vit_to_hf
+    from vitax.models import ViT
+    from vitax.utils.interop import export_vit_to_hf
 
     model = ViT(
         image_size=32, patch_size=8, num_classes=10, dim=64, depth=3,

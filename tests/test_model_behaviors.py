@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vit_tpu.models import CaiT, CrossFormer, CvT, LeViT, PiT
+from vitax.models import CaiT, CrossFormer, CvT, LeViT, PiT
 
 
 def test_levit_batchnorm_state_and_distill():
@@ -36,7 +36,7 @@ def test_levit_batchnorm_state_and_distill():
 def _randomize_bn_stats(variables, key):
     """init() leaves BN stats at (mean=0, var=1) — perturb them so the fold
     actually has something nontrivial to fold."""
-    import flax.core
+    from vitax._vendor import flax
 
     def go(path, leaf):
         k = jax.random.fold_in(key, hash(path) % (2**31))
@@ -51,7 +51,7 @@ def _randomize_bn_stats(variables, key):
 
 
 def test_bn_folding_cvt_matches_unfolded():
-    from vit_tpu.utils import fold_batch_norm
+    from vitax.utils import fold_batch_norm
 
     model = CvT(num_classes=10, s1_emb_dim=16, s1_depth=1, s2_emb_dim=32,
                 s2_depth=1, s3_emb_dim=32, s3_depth=1, s3_heads=2)
@@ -69,7 +69,7 @@ def test_bn_folding_cvt_matches_unfolded():
 
 
 def test_bn_folding_levit_matches_unfolded():
-    from vit_tpu.utils import fold_batch_norm
+    from vitax.utils import fold_batch_norm
 
     model = LeViT(image_size=64, num_classes=10, stages=2, dim=(32, 32), depth=1,
                   heads=(1, 2), mlp_mult=2, dim_key=16, dim_value=16)
@@ -86,7 +86,7 @@ def test_bn_folding_levit_matches_unfolded():
 def test_mixed_precision_residual_dtype_tightens_numerics():
     """residual_dtype=float32 (the bench's parity config) must track the
     fp32 model strictly tighter than the all-bf16 stream does."""
-    from vit_tpu.models import ViT
+    from vitax.models import ViT
 
     cfg = dict(image_size=32, patch_size=8, num_classes=10, dim=64, depth=6,
                heads=4, mlp_dim=128, dim_head=16)
@@ -110,8 +110,8 @@ def test_pos_embedding_resolution_transfer():
     """A ViT trained at one resolution runs at another by interpolating its
     learned position table (utils.pos_embed) — a transform the reference
     cannot express (pos_embedding locked to init shape, vit.py:142)."""
-    from vit_tpu.models import ViT
-    from vit_tpu.utils import adapt_vit_resolution, interpolate_pos_embedding
+    from vitax.models import ViT
+    from vitax.utils import adapt_vit_resolution, interpolate_pos_embedding
 
     m64 = ViT(image_size=64, patch_size=16, num_classes=10, dim=32, depth=1,
               heads=2, mlp_dim=64, dim_head=16)
@@ -183,13 +183,13 @@ def test_scan_unroll_invariant():
     identical at unroll=1 (loop) and unroll=depth (straight-line)."""
     import os
 
-    from vit_tpu.nn.blocks import Transformer
+    from vitax.nn.blocks import Transformer
 
     x = jax.random.normal(jax.random.PRNGKey(0), (2, 17, 32))
     outs, shapes = [], []
-    prior = os.environ.get("VIT_TPU_SCAN_UNROLL")
+    prior = os.environ.get("VITAX_SCAN_UNROLL")
     for unroll in ("1", "6"):
-        os.environ["VIT_TPU_SCAN_UNROLL"] = unroll
+        os.environ["VITAX_SCAN_UNROLL"] = unroll
         try:
             m = Transformer(dim=32, depth=6, heads=2, dim_head=16, mlp_dim=64)
             p = m.init({"params": jax.random.PRNGKey(1)}, x)
@@ -197,66 +197,55 @@ def test_scan_unroll_invariant():
             shapes.append(jax.tree.map(jnp.shape, p))
         finally:
             if prior is None:
-                os.environ.pop("VIT_TPU_SCAN_UNROLL", None)
+                os.environ.pop("VITAX_SCAN_UNROLL", None)
             else:
-                os.environ["VIT_TPU_SCAN_UNROLL"] = prior
+                os.environ["VITAX_SCAN_UNROLL"] = prior
     assert shapes[0] == shapes[1]
     np.testing.assert_allclose(outs[0], outs[1], atol=1e-6, rtol=1e-6)
 
 
-def _interpret_vs_xla(model, img_shape):
-    import os
-
-    img = jax.random.normal(jax.random.PRNGKey(0), img_shape)
-    variables = model.init({"params": jax.random.PRNGKey(1)}, img)
-    ref = model.apply(variables, img)  # xla path
-    old = os.environ.get("VIT_TPU_BACKEND")
-    os.environ["VIT_TPU_BACKEND"] = "interpret"
-    try:
-        out = model.apply(variables, img)  # fused kernels, interpreted
-    finally:
-        if old is None:
-            os.environ.pop("VIT_TPU_BACKEND")
-        else:
-            os.environ["VIT_TPU_BACKEND"] = old
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-4, rtol=2e-3)
+def _attention_layer_vs_block(layer, block_fn, n=33, dim=64):
+    """One attention layer of the module against the matching
+    ``vitax.ops`` block fed the layer's own parameters."""
+    x = jax.random.normal(jax.random.PRNGKey(0), (2, n, dim))
+    variables = layer.init({"params": jax.random.PRNGKey(1)}, x)
+    p = variables["params"]
+    ref = block_fn(x, p)
+    np.testing.assert_allclose(
+        np.asarray(layer.apply(variables, x)), np.asarray(ref), atol=2e-5, rtol=2e-4
+    )
 
 
 def test_deepvit_fused_reattention_branch_matches_xla():
-    """Drive DeepViT's fused re-attention kernel branch (normally TPU-only)
-    in interpreter mode against the materializing XLA path."""
-    from vit_tpu.models import DeepViT
+    """DeepViT's re-attention layer (the module's materializing path)
+    matches ``ops.reattention_block`` on the same parameters."""
+    from vitax import ops
+    from vitax.nn.attention import Attention
 
-    _interpret_vs_xla(
-        DeepViT(image_size=32, patch_size=8, num_classes=10, dim=64,
-                depth=2, heads=4, mlp_dim=128, dim_head=16),
-        (1, 32, 32, 3),
+    _attention_layer_vs_block(
+        Attention(dim=64, heads=4, dim_head=16, reattention=True, fuse_residual=True),
+        lambda x, p: ops.reattention_block(
+            x, p["norm_scale"], p["norm_bias"], p["qkv_kernel"], p["out_kernel"],
+            p["out_bias"], p["reattn_weights"], p["reattn_scale"], p["reattn_bias"],
+            4, scale=16**-0.5, ln_eps=1e-6,
+        ),
     )
 
 
 def test_cait_fused_talking_heads_branch_matches_xla():
-    """Drive CaiT's fused talking-heads kernel branch (normally TPU-only)
-    in interpreter mode against the materializing XLA path."""
-    _interpret_vs_xla(
-        CaiT(image_size=32, patch_size=8, num_classes=10, dim=64, depth=2,
-             cls_depth=1, heads=4, mlp_dim=128, dim_head=16),
-        (1, 32, 32, 3),
+    """CaiT's talking-heads layer (the module's materializing path) matches
+    ``ops.talking_heads_block`` on the same parameters."""
+    from vitax import ops
+    from vitax.nn.attention import Attention
+
+    _attention_layer_vs_block(
+        Attention(dim=64, heads=4, dim_head=16, talking_heads=True, norm_eps=1e-5),
+        lambda x, p: ops.talking_heads_block(
+            x, p["norm_scale"], p["norm_bias"], p["qkv_kernel"], p["out_kernel"],
+            p["out_bias"], p["mix_heads_pre"], p["mix_heads_post"], 4,
+            scale=16**-0.5, ln_eps=1e-5,
+        ),
     )
-
-
-def test_true_tokens_refuses_unmasked_paths():
-    """true_tokens (padded-stream mode) is only honored by the raw-param
-    self-attention path; the flax branch (qkv_bias) would silently attend
-    to padded key rows, so the module must refuse."""
-    import jax
-    import jax.numpy as jnp
-    import pytest
-
-    from vit_tpu.nn.attention import Attention
-
-    attn = Attention(dim=64, heads=4, dim_head=16, qkv_bias=True, true_tokens=60)
-    with pytest.raises(AssertionError, match="raw-param"):
-        attn.init({"params": jax.random.PRNGKey(0)}, jnp.ones((1, 64, 64)))
 
 
 class TestLowQueryCrossAttention:
@@ -268,7 +257,7 @@ class TestLowQueryCrossAttention:
         import jax
         import jax.numpy as jnp
 
-        from vit_tpu.nn.attention import Attention
+        from vitax.nn.attention import Attention
 
         on = Attention(dim=128, heads=4, dim_head=32, lowq_cross=True, **kwargs)
         off = Attention(dim=128, heads=4, dim_head=32, lowq_cross=False, **kwargs)

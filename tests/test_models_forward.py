@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vit_tpu.models import MODEL_REGISTRY
+from vitax.models import MODEL_REGISTRY
 
 
 @pytest.mark.parametrize("name", sorted(MODEL_REGISTRY))
@@ -39,8 +39,8 @@ def test_train_mode_dropout_is_stochastic(name):
 
 
 def test_efficient_shell_with_injected_encoder():
-    from vit_tpu.models import EfficientViT
-    from vit_tpu.nn.blocks import Transformer
+    from vitax.models import EfficientViT
+    from vitax.nn.blocks import Transformer
 
     encoder = Transformer(dim=64, depth=1, heads=4, dim_head=16, mlp_dim=128)
     model = EfficientViT(
@@ -53,7 +53,7 @@ def test_efficient_shell_with_injected_encoder():
 
 
 def test_standalone_patch_merger():
-    from vit_tpu.models import PatchMerger
+    from vitax.models import PatchMerger
 
     merger = PatchMerger(dim=32, num_tokens_out=8)
     feats = jax.random.normal(jax.random.PRNGKey(0), (4, 64, 32))
@@ -63,7 +63,7 @@ def test_standalone_patch_merger():
 
 
 def test_simple_vit_channels_first_adapter():
-    from vit_tpu.models import SimpleViT
+    from vitax.models import SimpleViT
 
     model = SimpleViT(
         image_size=32, patch_size=8, num_classes=10, dim=64, depth=1, heads=4,

@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vit_tpu.models.vit_moe import ViTMoE
-from vit_tpu.nn.blocks import _layer_norm
-from vit_tpu.nn.moe import MoEFeedForward
-from vit_tpu.parallel import make_mesh, tp_param_specs
+from vitax.models.vit_moe import ViTMoE
+from vitax.nn.blocks import _layer_norm
+from vitax.nn.moe import MoEFeedForward
+from vitax.parallel import make_mesh, tp_param_specs
 
 
 def _moe(capacity_factor, e=4, k=2):
@@ -73,7 +73,7 @@ MODEL = ViTMoE(image_size=32, patch_size=8, num_classes=10, dim=32, depth=2,
 
 
 def test_vitmoe_ep_shards_and_trains_on_dp_ep_mesh():
-    from vit_tpu.train import create_train_state, make_train_step, shard_batch
+    from vitax.train import create_train_state, make_train_step, shard_batch
 
     img = jax.random.normal(jax.random.PRNGKey(0), (8, 32, 32, 3))
     labels = jnp.arange(8) % 10
@@ -109,7 +109,7 @@ def test_vitmoe_ep_shards_and_trains_on_dp_ep_mesh():
 
 
 def test_moe_aux_loss_enters_training_loss():
-    from vit_tpu.train import create_train_state, make_train_step
+    from vitax.train import create_train_state, make_train_step
 
     img = jax.random.normal(jax.random.PRNGKey(0), (4, 32, 32, 3))
     labels = jnp.arange(4) % 10

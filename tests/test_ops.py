@@ -1,42 +1,187 @@
-"""Kernel-level tests: Pallas (interpreter mode) vs. plain-XLA references."""
+"""Op-level tests: ``vitax.ops`` against float64 NumPy references.
+
+The references below share no code with ``vitax.ops``. Forward outputs are
+compared directly; gradients either against the analytic attention
+backward in NumPy or, for the whole blocks, as directional derivatives
+against central finite differences of the NumPy forward.
+"""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vit_tpu.ops.flash_attention import flash_attention, reference_attention
-from vit_tpu.ops.fused_mlp import fused_mlp, reference_mlp
-from vit_tpu.ops import extract_patches, patchify, spt_shifts, unpatchify
+from vitax import ops
+from vitax.ops import extract_patches, patchify, spt_shifts, unpatchify
+from vitax.ops.attention_core import uses_cudnn
 
 
 def rand(key, shape, dtype=jnp.float32):
     return jax.random.normal(jax.random.PRNGKey(key), shape, dtype=dtype)
 
 
+def f64(x):
+    return np.asarray(x, np.float64)
+
+
+# --------------------------------------------------------------------------
+# float64 NumPy references
+
+
+def np_softmax(s):
+    e = np.exp(s - s.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
+def np_attention_probs(q, k, bias=None, scale=None, mask_self=False):
+    q, k = f64(q), f64(k)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = np.einsum("bhid,bhjd->bhij", q, k) * scale
+    if bias is not None:
+        s = s + f64(bias)
+    if mask_self:
+        nq, nk = s.shape[-2:]
+        s = np.where(np.eye(nq, nk, dtype=bool), -1e300, s)
+    return np_softmax(s)
+
+
+def np_attention(q, k, v, bias=None, scale=None, mask_self=False):
+    p = np_attention_probs(q, k, bias, scale, mask_self)
+    return np.einsum("bhij,bhjd->bhid", p, f64(v))
+
+
+def np_attention_grads(q, k, v, bias, g, scale=None, mask_self=False):
+    """Analytic backward of ``np_attention`` for the cotangent ``g``:
+    dV = P^T g; dP = g V^T; dS = P * (dP - rowsum(g * O)); dQ = scale dS K;
+    dK = scale dS^T Q; dbias = dS summed over the bias's broadcast axes."""
+    q, k, v, g = f64(q), f64(k), f64(v), f64(g)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    p = np_attention_probs(q, k, bias, scale, mask_self)
+    o = np.einsum("bhij,bhjd->bhid", p, v)
+    dv = np.einsum("bhij,bhid->bhjd", p, g)
+    dp = np.einsum("bhid,bhjd->bhij", g, v)
+    ds = p * (dp - np.sum(g * o, axis=-1, keepdims=True))
+    dq = scale * np.einsum("bhij,bhjd->bhid", ds, k)
+    dk = scale * np.einsum("bhij,bhid->bhjd", ds, q)
+    db = None
+    if bias is not None:
+        db = ds
+        for ax in (0, 1):
+            if bias.shape[ax] == 1:
+                db = db.sum(axis=ax, keepdims=True)
+    return dq, dk, dv, db
+
+
+def np_layer_norm(x, scale, bias, eps):
+    x = f64(x)
+    mean = x.mean(-1, keepdims=True)
+    var = ((x - mean) ** 2).mean(-1, keepdims=True)
+    out = (x - mean) / np.sqrt(var + eps) * f64(scale)
+    return out if bias is None else out + f64(bias)
+
+
+def np_act(h, activation):
+    if activation == "gelu":
+        return 0.5 * h * (1.0 + np.tanh(np.sqrt(2.0 / np.pi) * (h + 0.044715 * h**3)))
+    if activation == "hard_swish":
+        return h * np.clip(h + 3.0, 0.0, 6.0) / 6.0
+    raise ValueError(activation)
+
+
+def np_mlp(x, w1, b1, w2, b2, ln_s=None, ln_b=None, activation="gelu",
+           residual=True, eps=1e-6):
+    h = f64(x) if ln_s is None else np_layer_norm(x, ln_s, ln_b, eps)
+    h = h @ f64(w1) + (0 if b1 is None else f64(b1))
+    h = np_act(h, activation) @ f64(w2) + (0 if b2 is None else f64(b2))
+    return h + f64(x) if residual else h
+
+
+def np_heads(x, ln_s, ln_b, wqkv, heads, eps):
+    b, n, _ = x.shape
+    d = wqkv.shape[1] // 3 // heads
+    qkv = np_layer_norm(x, ln_s, ln_b, eps) @ f64(wqkv)
+    return qkv.reshape(b, n, 3, heads, d).transpose(2, 0, 3, 1, 4)
+
+
+def np_merge(o):
+    b, h, n, d = o.shape
+    return o.transpose(0, 2, 1, 3).reshape(b, n, h * d)
+
+
+def np_block(x, ln_s, ln_b, wqkv, wout, bout, heads, eps=1e-6):
+    """Pre-norm self-attention block with the residual add."""
+    q, k, v = np_heads(x, ln_s, ln_b, wqkv, heads, eps)
+    o = np_merge(np_attention(q, k, v))
+    return f64(x) + o @ f64(wout) + f64(bout)
+
+
+def np_window_block(xw, ln_s, ln_b, wqkv, wout, bout, heads, bias=None, eps=1e-5):
+    q, k, v = np_heads(xw, ln_s, ln_b, wqkv, heads, eps)
+    s = xw.shape[1]
+    bb = None if bias is None else f64(bias).reshape(1, -1, s, s)
+    o = np_merge(np_attention(q, k, v, bb))
+    return o @ f64(wout) + f64(bout)
+
+
+def np_reattention_block(x, ln_s, ln_b, wqkv, wout, bout, mix, rs, rb, heads, eps=1e-6):
+    q, k, v = np_heads(x, ln_s, ln_b, wqkv, heads, eps)
+    p = np_attention_probs(q, k)
+    r = np.einsum("bhij,hg->bgij", p, f64(mix))
+    r = np_layer_norm(r.transpose(0, 2, 3, 1), rs, rb, 1e-6).transpose(0, 3, 1, 2)
+    o = np_merge(np.einsum("bhij,bhjd->bhid", r, v))
+    return f64(x) + o @ f64(wout) + f64(bout)
+
+
+def np_talking_heads_block(x, ln_s, ln_b, wqkv, wout, bout, mix_pre, mix_post,
+                           heads, residual=False, eps=1e-5):
+    q, k, v = np_heads(x, ln_s, ln_b, wqkv, heads, eps)
+    s = np.einsum("bhid,bhjd->bhij", q, k) * q.shape[-1] ** -0.5
+    s = np.einsum("bhij,hg->bgij", s, f64(mix_pre))
+    p = np.einsum("bhij,hg->bgij", np_softmax(s), f64(mix_post))
+    o = np_merge(np.einsum("bhij,bhjd->bhid", p, v))
+    out = o @ f64(wout) + f64(bout)
+    return out + f64(x) if residual else out
+
+
+def directional_check(jax_fn, np_fn, args, *, seed=0, eps=1e-5, rtol=2e-3):
+    """<grad of sum(jax_fn(args)**2), u> against the central difference of
+    the float64 NumPy ``np_fn`` along a random direction ``u``."""
+    loss = lambda *a: jnp.sum(jax_fn(*a) ** 2)
+    grads = jax.grad(loss, argnums=tuple(range(len(args))))(*args)
+    rng = np.random.default_rng(seed)
+    us = [rng.normal(size=np.shape(a)) for a in args]
+    analytic = sum(float(np.sum(f64(g) * u)) for g, u in zip(grads, us))
+    np_loss = lambda t: float(np.sum(np_fn(*[f64(a) + t * u for a, u in zip(args, us)]) ** 2))
+    numeric = (np_loss(eps) - np_loss(-eps)) / (2 * eps)
+    assert abs(analytic - numeric) <= rtol * max(1.0, abs(numeric)), (analytic, numeric)
+
+
+# --------------------------------------------------------------------------
+
+
 class TestFlashAttention:
+    """``ops.attention`` (the XLA path on this backend) vs NumPy."""
+
     @pytest.mark.parametrize("nq,nk", [(65, 65), (197, 197), (2, 66), (130, 257)])
     def test_matches_reference(self, nq, nk):
         b, h, d = 2, 4, 64
         q, k, v = rand(0, (b, h, nq, d)), rand(1, (b, h, nk, d)), rand(2, (b, h, nk, d))
-        out = flash_attention(q, k, v, interpret=True)
-        ref = reference_attention(q, k, v)
-        np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
+        out = ops.attention(q, k, v)
+        np.testing.assert_allclose(out, np_attention(q, k, v), atol=2e-5, rtol=2e-5)
 
     @pytest.mark.parametrize("bias_shape", [(1, 4, 50, 50), (2, 1, 50, 50), (1, 1, 50, 50), (2, 4, 50, 50)])
     def test_bias_broadcasting(self, bias_shape):
         b, h, n, d = 2, 4, 50, 32
         q, k, v = rand(0, (b, h, n, d)), rand(1, (b, h, n, d)), rand(2, (b, h, n, d))
         bias = rand(3, bias_shape)
-        out = flash_attention(q, k, v, bias, interpret=True)
-        ref = reference_attention(q, k, v, bias)
-        np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
+        out = ops.attention(q, k, v, bias)
+        np.testing.assert_allclose(out, np_attention(q, k, v, bias), atol=2e-5, rtol=2e-5)
 
     def test_diag_self_mask(self):
         b, h, n, d = 1, 2, 37, 16
         q, k, v = rand(0, (b, h, n, d)), rand(1, (b, h, n, d)), rand(2, (b, h, n, d))
-        out = flash_attention(q, k, v, mask_self=True, interpret=True)
-        ref = reference_attention(q, k, v, mask_self=True)
+        out = ops.attention(q, k, v, mask_self=True)
+        ref = np_attention(q, k, v, mask_self=True)
         np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
 
     def test_bf16(self):
@@ -44,355 +189,298 @@ class TestFlashAttention:
         q = rand(0, (b, h, n, d), jnp.bfloat16)
         k = rand(1, (b, h, n, d), jnp.bfloat16)
         v = rand(2, (b, h, n, d), jnp.bfloat16)
-        out = flash_attention(q, k, v, interpret=True)
-        ref = reference_attention(
-            q.astype(jnp.float32), k.astype(jnp.float32), v.astype(jnp.float32)
-        )
+        out = ops.attention(q, k, v)
         assert out.dtype == jnp.bfloat16
         np.testing.assert_allclose(
-            out.astype(np.float32), np.asarray(ref), atol=2e-2, rtol=2e-2
+            np.asarray(out, np.float32), np_attention(q, k, v), atol=2e-2, rtol=2e-2
         )
 
     def test_custom_scale(self):
         b, h, n, d = 1, 2, 30, 32
         q, k, v = rand(0, (b, h, n, d)), rand(1, (b, h, n, d)), rand(2, (b, h, n, d))
-        out = flash_attention(q, k, v, scale=0.25, interpret=True)
-        ref = reference_attention(q, k, v, scale=0.25)
-        np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
+        out = ops.attention(q, k, v, scale=0.25)
+        np.testing.assert_allclose(out, np_attention(q, k, v, scale=0.25), atol=2e-5, rtol=2e-5)
 
 
 class TestFlashAttentionKVBlocked:
-    """Online-softmax kv-blocked flash (the long-context path the auto
-    dispatcher routes VMEM-oversized shapes to). Small block sizes force
-    multiple kv blocks so the running (m, l, acc) rescaling is exercised."""
-
-    def _run(self, q, k, v, bias=None, **kw):
-        from vit_tpu.ops import flash_attention_kv_blocked
-        from vit_tpu.ops.flash_attention import _flash_attention_kv_blocked_impl
-
-        # exercise the blocked path with tiny blocks regardless of shape
-        return _flash_attention_kv_blocked_impl(
-            q, k, v, bias, scale=kw.pop("scale", q.shape[-1] ** -0.5),
-            block_q=kw.pop("block_q", 128), block_k=kw.pop("block_k", 128),
-            interpret=True, **kw,
-        )
+    """Long and ragged sequences, bias with the diagonal mask, a value
+    width that differs from the key width, bf16 and gradients."""
 
     @pytest.mark.parametrize("nq,nk", [(65, 65), (130, 257), (2, 300), (197, 515)])
     def test_matches_reference(self, nq, nk):
         b, h, d = 2, 2, 32
         q, k, v = rand(0, (b, h, nq, d)), rand(1, (b, h, nk, d)), rand(2, (b, h, nk, d))
-        out = self._run(q, k, v)
-        ref = reference_attention(q, k, v)
-        np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(ops.attention(q, k, v), np_attention(q, k, v), atol=2e-5, rtol=2e-5)
 
     def test_bias_and_mask(self):
         b, h, n, d = 2, 2, 260, 32
         q, k, v = rand(0, (b, h, n, d)), rand(1, (b, h, n, d)), rand(2, (b, h, n, d))
         bias = rand(3, (1, h, n, n))
-        out = self._run(q, k, v, bias, mask_self=True)
-        ref = reference_attention(q, k, v, bias, mask_self=True)
+        out = ops.attention(q, k, v, bias, mask_self=True)
+        ref = np_attention(q, k, v, bias, mask_self=True)
         np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
 
     def test_wide_dv(self):
         b, h, nq, nk, d, dv = 1, 2, 64, 384, 32, 64
         q, k = rand(0, (b, h, nq, d)), rand(1, (b, h, nk, d))
         v = rand(2, (b, h, nk, dv))
-        out = self._run(q, k, v)
-        ref = reference_attention(q, k, v)
+        out = ops.attention(q, k, v)
         assert out.shape == (b, h, nq, dv)
-        np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(out, np_attention(q, k, v), atol=2e-5, rtol=2e-5)
 
     def test_bf16(self):
         b, h, n, d = 1, 2, 300, 32
         q = rand(0, (b, h, n, d), jnp.bfloat16)
         k = rand(1, (b, h, n, d), jnp.bfloat16)
         v = rand(2, (b, h, n, d), jnp.bfloat16)
-        out = self._run(q, k, v)
-        ref = reference_attention(
-            q.astype(jnp.float32), k.astype(jnp.float32), v.astype(jnp.float32)
-        )
+        out = ops.attention(q, k, v)
         assert out.dtype == jnp.bfloat16
         np.testing.assert_allclose(
-            out.astype(np.float32), np.asarray(ref), atol=2e-2, rtol=2e-2
+            np.asarray(out, np.float32), np_attention(q, k, v), atol=2e-2, rtol=2e-2
         )
 
     def test_grads_match_reference(self):
-        from vit_tpu.ops import flash_attention_kv_blocked
-
         b, h, n, d = 1, 2, 140, 16
         q, k, v = rand(0, (b, h, n, d)), rand(1, (b, h, n, d)), rand(2, (b, h, n, d))
-        gk = jax.grad(lambda *a: jnp.sum(
-            flash_attention_kv_blocked(*a, block_q=64, interpret=True) ** 2),
-            argnums=(0, 1, 2))(q, k, v)
-        gr = jax.grad(lambda *a: jnp.sum(reference_attention(*a) ** 2),
-                      argnums=(0, 1, 2))(q, k, v)
-        for a, b_ in zip(gk, gr):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b_), atol=1e-4, rtol=1e-4)
+        out, vjp = jax.vjp(ops.attention, q, k, v)
+        got = vjp(2 * out)  # d sum(out**2)
+        ref = np_attention_grads(q, k, v, None, 2 * f64(out))
+        for a, r in zip(got, ref):
+            np.testing.assert_allclose(np.asarray(a), r, atol=1e-4, rtol=1e-4)
 
 
 class TestFusedQKVAttention:
+    """``ops.qkv_attention`` on the fused ``[B, N, 3*H*D]`` layout."""
+
+    @staticmethod
+    def _ref(qkv, heads, bias=None):
+        b, n, three_hd = qkv.shape
+        d = three_hd // 3 // heads
+        q, k, v = f64(qkv).reshape(b, n, 3, heads, d).transpose(2, 0, 3, 1, 4)
+        return np_merge(np_attention(q, k, v, bias))
+
     @pytest.mark.parametrize("n,heads,d", [(197, 16, 64), (64, 4, 32), (50, 2, 48)])
     def test_matches_split_path(self, n, heads, d):
-        from vit_tpu.ops.qkv_attention import fused_qkv_attention
-
-        b = 2
-        qkv = rand(0, (b, n, 3 * heads * d))
-        out = fused_qkv_attention(qkv, heads, interpret=True)
-        q, k, v = jnp.split(qkv, 3, axis=-1)
-        split = lambda t: t.reshape(b, n, heads, d).transpose(0, 2, 1, 3)
-        ref = reference_attention(split(q), split(k), split(v))
-        ref = ref.transpose(0, 2, 1, 3).reshape(b, n, heads * d)
-        np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
+        qkv = rand(0, (2, n, 3 * heads * d))
+        out = ops.qkv_attention(qkv, heads)
+        np.testing.assert_allclose(out, self._ref(qkv, heads), atol=2e-5, rtol=2e-5)
 
     def test_with_bias_and_ragged_q_blocks(self):
-        from vit_tpu.ops.qkv_attention import fused_qkv_attention
-
-        b, n, heads, d = 2, 300, 4, 32  # n > block_q forces ragged tiling
+        b, n, heads, d = 2, 300, 4, 32
         qkv = rand(0, (b, n, 3 * heads * d))
         bias = rand(1, (1, heads, n, n))
-        out = fused_qkv_attention(qkv, heads, bias, block_q=256, interpret=True)
-        q, k, v = jnp.split(qkv, 3, axis=-1)
-        split = lambda t: t.reshape(b, n, heads, d).transpose(0, 2, 1, 3)
-        ref = reference_attention(split(q), split(k), split(v), bias)
-        ref = ref.transpose(0, 2, 1, 3).reshape(b, n, heads * d)
-        np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
+        out = ops.qkv_attention(qkv, heads, bias)
+        np.testing.assert_allclose(out, self._ref(qkv, heads, bias), atol=2e-5, rtol=2e-5)
 
 
 class TestFusedMLP:
+    """``ops.mlp`` (LN -> GEMM -> act -> GEMM -> +x) vs NumPy."""
+
     @pytest.mark.parametrize("t,d,f", [(65, 96, 384), (197, 128, 512), (64, 256, 1100)])
     def test_matches_reference(self, t, d, f):
         x = rand(0, (2, t, d))
         w1, b1 = rand(1, (d, f)), rand(2, (f,))
         w2, b2 = rand(3, (f, d)), rand(4, (d,))
         g, bl = rand(5, (d,)), rand(6, (d,))
-        out = fused_mlp(x, w1, b1, w2, b2, g, bl, interpret=True)
-        ref = reference_mlp(x, w1, b1, w2, b2, g, bl)
-        # blocked hidden-dim accumulation reorders fp32 sums vs one big dot
+        out = ops.mlp(x, w1, b1, w2, b2, g, bl)
+        ref = np_mlp(x, w1, b1, w2, b2, g, bl)
         np.testing.assert_allclose(out, ref, atol=1e-3, rtol=1e-3)
 
     def test_no_ln_no_residual(self):
         x = rand(0, (1, 50, 64))
         w1, w2 = rand(1, (64, 128)), rand(2, (128, 64))
-        out = fused_mlp(x, w1, None, w2, None, residual=False, interpret=True)
-        ref = reference_mlp(x, w1, None, w2, None, residual=False)
-        np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
+        out = ops.mlp(x, w1, None, w2, None, residual=False)
+        ref = np_mlp(x, w1, None, w2, None, residual=False)
+        np.testing.assert_allclose(out, ref, atol=1e-3, rtol=1e-4)
 
     def test_hard_swish(self):
         x = rand(0, (1, 49, 64))
         w1, b1 = rand(1, (64, 128)), rand(2, (128,))
         w2, b2 = rand(3, (128, 64)), rand(4, (64,))
-        out = fused_mlp(x, w1, b1, w2, b2, activation="hard_swish", interpret=True)
-        ref = reference_mlp(x, w1, b1, w2, b2, activation="hard_swish")
-        np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
+        out = ops.mlp(x, w1, b1, w2, b2, activation="hard_swish")
+        ref = np_mlp(x, w1, b1, w2, b2, activation="hard_swish")
+        np.testing.assert_allclose(out, ref, atol=1e-3, rtol=1e-4)
 
 
 class TestFusedAttentionBlock:
-    def test_matches_xla(self):
-        from vit_tpu.ops.block_attention import fused_attention_block, xla_attention_block
+    """The raw-parameter ``Attention`` module with the residual add (the
+    encoder block's attention half) vs the NumPy block."""
 
+    @staticmethod
+    def _module(dim, heads, d):
+        from vitax.nn.attention import Attention
+
+        return Attention(dim=dim, heads=heads, dim_head=d, fuse_residual=True)
+
+    @staticmethod
+    def _np(params, x, heads):
+        p = params["params"]
+        return np_block(x, p["norm_scale"], p["norm_bias"], p["qkv_kernel"],
+                        p["out_kernel"], p["out_bias"], heads)
+
+    def test_matches_xla(self):
         b, n, dim, heads, d = 2, 65, 64, 4, 16
         x = rand(0, (b, n, dim))
-        ln_s, ln_b = rand(1, (dim,)), rand(2, (dim,))
-        wqkv = rand(3, (dim, 3 * heads * d)) * 0.1
-        wout = rand(4, (heads * d, dim)) * 0.1
-        bout = rand(5, (dim,)) * 0.1
-        out = fused_attention_block(x, ln_s, ln_b, wqkv, wout, bout, heads, interpret=True)
-        ref = xla_attention_block(x, ln_s, ln_b, wqkv, wout, bout, heads, d**-0.5)
-        np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
+        m = self._module(dim, heads, d)
+        params = m.init({"params": jax.random.PRNGKey(1)}, x)
+        np.testing.assert_allclose(m.apply(params, x), self._np(params, x, heads), atol=1e-4, rtol=1e-4)
 
     @pytest.mark.parametrize("n", [50, 64, 197])
     def test_token_padding_path(self, n):
-        # The kernel pads unaligned token counts to the Mosaic sublane tile
-        # and masks padded key columns out of the softmax; real rows must be
-        # unaffected and the output shape preserved (block_attention.py).
-        from vit_tpu.ops.block_attention import fused_attention_block, xla_attention_block
-
+        # unaligned token counts run as they are: no padding, same shape
         b, dim, heads, d = 3, 48, 3, 16
         x = rand(0, (b, n, dim))
-        ln_s, ln_b = rand(1, (dim,)), rand(2, (dim,))
-        wqkv = rand(3, (dim, 3 * heads * d)) * 0.1
-        wout = rand(4, (heads * d, dim)) * 0.1
-        bout = rand(5, (dim,)) * 0.1
-        out = fused_attention_block(x, ln_s, ln_b, wqkv, wout, bout, heads, interpret=True)
+        m = self._module(dim, heads, d)
+        params = m.init({"params": jax.random.PRNGKey(2)}, x)
+        out = m.apply(params, x)
         assert out.shape == x.shape
-        ref = xla_attention_block(x, ln_s, ln_b, wqkv, wout, bout, heads, d**-0.5)
-        np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(out, self._np(params, x, heads), atol=1e-4, rtol=1e-4)
 
     def test_grads_match_xla(self):
-        from vit_tpu.ops.block_attention import fused_attention_block, xla_attention_block
-
         b, n, dim, heads, d = 1, 30, 32, 2, 16
         args = (rand(0, (b, n, dim)), rand(1, (dim,)), rand(2, (dim,)),
                 rand(3, (dim, 3 * heads * d)) * 0.1,
                 rand(4, (heads * d, dim)) * 0.1, rand(5, (dim,)) * 0.1)
+        m = self._module(dim, heads, d)
 
-        g1 = jax.grad(lambda *a: jnp.sum(
-            fused_attention_block(*a, heads, interpret=True) ** 2), argnums=tuple(range(6)))(*args)
-        g2 = jax.grad(lambda *a: jnp.sum(
-            xla_attention_block(*a, heads, d**-0.5) ** 2), argnums=tuple(range(6)))(*args)
-        for a, b_ in zip(g1, g2):
-            np.testing.assert_allclose(a, b_, atol=2e-3, rtol=2e-3)
+        def fwd(x, ns, nb, wqkv, wout, bout):
+            p = {"norm_scale": ns, "norm_bias": nb, "qkv_kernel": wqkv,
+                 "out_kernel": wout, "out_bias": bout}
+            return m.apply({"params": p}, x)
 
-
-class TestDispatcherPaths:
-    def test_model_fused_path_interpret_mode(self):
-        """Drive the full Attention fused-kernel branch (normally TPU-only)
-        in interpreter mode — catches dispatcher-signature drift the
-        XLA-fallback CPU tests can't see."""
-        import os
-
-        from vit_tpu.models import ViT
-
-        model = ViT(image_size=32, patch_size=8, num_classes=10, dim=64,
-                    depth=2, heads=4, mlp_dim=128, dim_head=16)
-        img = jax.random.normal(jax.random.PRNGKey(0), (1, 32, 32, 3))
-        variables = model.init({"params": jax.random.PRNGKey(1)}, img)
-        ref = model.apply(variables, img)  # xla path
-        old = os.environ.get("VIT_TPU_BACKEND")
-        os.environ["VIT_TPU_BACKEND"] = "interpret"
-        try:
-            out = model.apply(variables, img)  # fused kernels, interpreted
-        finally:
-            if old is None:
-                os.environ.pop("VIT_TPU_BACKEND")
-            else:
-                os.environ["VIT_TPU_BACKEND"] = old
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-4, rtol=2e-3)
-
-
-class TestFlashVmemGuard:
-    def test_zoo_shapes_fit(self):
-        # every shape the zoo actually routes to flash must pass the guard
-        from vit_tpu.ops import _flash_vmem_fits
-
-        for b, h, nq, nk, d, dv in [
-            (128, 16, 197, 197, 64, 64),   # ViT-L
-            (128, 1, 3136, 3136, 64, 64),  # T2T tokenizer stage
-            (128, 4, 4096, 1024, 64, 64),  # CvT stage 1
-            (16, 4, 785, 785, 32, 32),     # RegionViT quirks windows
-        ]:
-            assert _flash_vmem_fits((b, h, nq, d), (b, h, nk, d), (b, h, nk, dv), False, 2)
-
-    def test_oversized_kv_rejected(self):
-        # adversarial long-kv x wide-dv shapes must reroute, not Mosaic-fail
-        from vit_tpu.ops import _flash_vmem_fits
-
-        assert not _flash_vmem_fits(
-            (1, 1, 256, 128), (1, 1, 40960, 128), (1, 1, 40960, 512), False, 2
-        )
-        # a huge bias tile alone can bust the budget
-        assert not _flash_vmem_fits(
-            (1, 1, 4096, 64), (1, 1, 16384, 64), (1, 1, 16384, 64), True, 2
-        )
-
-    def test_oversized_call_falls_back_to_xla(self):
-        # end-to-end: in auto mode the dispatcher must return (XLA path)
-        # instead of attempting an unbuildable kernel.
-        from vit_tpu import ops
-
-        q = jax.random.normal(jax.random.PRNGKey(0), (1, 1, 256, 128), jnp.bfloat16)
-        k = jax.random.normal(jax.random.PRNGKey(1), (1, 1, 20480, 128), jnp.bfloat16)
-        v = jax.random.normal(jax.random.PRNGKey(2), (1, 1, 20480, 512), jnp.bfloat16)
-        out = ops.attention(q, k, v)
-        assert out.shape == (1, 1, 256, 512)
+        directional_check(fwd, lambda *a: np_block(*a, heads), args)
 
 
 class TestCustomVJP:
-    def test_qkv_attention_grads_match_xla(self):
-        from vit_tpu.ops.qkv_attention import fused_qkv_attention, xla_qkv_attention
+    """Gradients through the attention ops against the analytic NumPy
+    backward (and, for the MLP, finite differences)."""
 
+    def test_qkv_attention_grads_match_xla(self):
         b, n, heads, d = 2, 50, 4, 32
         qkv = rand(0, (b, n, 3 * heads * d))
         bias = rand(1, (1, heads, n, n))
-
-        def loss_pallas(qkv, bias):
-            return jnp.sum(fused_qkv_attention(qkv, heads, bias, interpret=True) ** 2)
-
-        def loss_xla(qkv, bias):
-            return jnp.sum(xla_qkv_attention(qkv, heads, bias) ** 2)
-
-        g1 = jax.grad(loss_pallas, argnums=(0, 1))(qkv, bias)
-        g2 = jax.grad(loss_xla, argnums=(0, 1))(qkv, bias)
-        for a, b_ in zip(g1, g2):
-            np.testing.assert_allclose(a, b_, atol=1e-4, rtol=1e-4)
+        out, vjp = jax.vjp(lambda a, c: ops.qkv_attention(a, heads, c), qkv, bias)
+        g = 2 * f64(out)
+        dqkv, dbias = vjp(2 * out)
+        q, k, v = f64(qkv).reshape(b, n, 3, heads, d).transpose(2, 0, 3, 1, 4)
+        gh = g.reshape(b, n, heads, d).transpose(0, 2, 1, 3)
+        dq, dk, dv, db = np_attention_grads(q, k, v, bias, gh)
+        ref = np.stack([dq, dk, dv]).transpose(1, 3, 0, 2, 4).reshape(b, n, 3 * heads * d)
+        np.testing.assert_allclose(np.asarray(dqkv), ref, atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(np.asarray(dbias), db, atol=1e-4, rtol=1e-4)
 
     def test_flash_attention_grads_match_xla(self):
-        """jax.grad through the flash kernel (ADVICE r1: the one kernel that
-        lacked a custom VJP — every window/pyramid family and cross-attention
-        reach it via mha_tokens / ops.attention)."""
-        from vit_tpu.ops.flash_attention import flash_attention, reference_attention
-
         b, h, n, d = 2, 3, 40, 16
         q, k, v = rand(0, (b, h, n, d)), rand(1, (b, h, n, d)), rand(2, (b, h, n, d))
         bias = rand(3, (1, h, n, n))
+        for mask_self in (False, True):
+            f = lambda *a: ops.attention(*a, mask_self=mask_self)
+            out, vjp = jax.vjp(f, q, k, v, bias)
+            got = vjp(2 * out)
+            ref = np_attention_grads(q, k, v, bias, 2 * f64(out), mask_self=mask_self)
+            for a, r in zip(got, ref):
+                np.testing.assert_allclose(np.asarray(a), r, atol=2e-4, rtol=2e-4)
+        # bias=None
+        out, vjp = jax.vjp(lambda q: ops.attention(q, k, v), q)
+        (dq,) = vjp(2 * out)
+        ref = np_attention_grads(q, k, v, None, 2 * f64(out))[0]
+        np.testing.assert_allclose(np.asarray(dq), ref, atol=2e-4, rtol=2e-4)
 
-        for extra in ({}, {"mask_self": True}):
-            g1 = jax.grad(
-                lambda *a: jnp.sum(flash_attention(*a, interpret=True, **extra) ** 2),
-                argnums=(0, 1, 2, 3),
-            )(q, k, v, bias)
-            g2 = jax.grad(
-                lambda *a: jnp.sum(reference_attention(*a, **extra) ** 2),
-                argnums=(0, 1, 2, 3),
-            )(q, k, v, bias)
-            for a, b_ in zip(g1, g2):
-                np.testing.assert_allclose(a, b_, atol=2e-4, rtol=2e-4)
-
-        # bias=None path: custom_vjp must thread the empty pytree through
-        g = jax.grad(lambda q: jnp.sum(flash_attention(q, k, v, interpret=True) ** 2))(q)
-        gr = jax.grad(lambda q: jnp.sum(reference_attention(q, k, v) ** 2))(q)
-        np.testing.assert_allclose(g, gr, atol=2e-4, rtol=2e-4)
-
-    def test_flash_chunked_backward_matches_reference_vjp(self):
-        # The custom backward recomputes scores one Q chunk at a time (no
-        # B*H*Nq*Nk materialization); gradients must equal the reference
-        # vjp including bias broadcast reduction, boundary chunks that
-        # would clamp a dynamic_slice, and the LSA diagonal mask.
-        for nq, nk, bias_shape, mask_self in (
-            (33, 33, (1, 1, 33, 33), False),  # pad + clamp-prone boundary
-            (64, 64, (1, 2, 64, 64), False),  # per-head bias
-            (40, 40, None, True),             # diagonal mask
-        ):
-            b, h, d = 2, 2, 8
-            q = rand(0, (b, h, nq, d))
-            k = rand(1, (b, h, nk, d))
-            v = rand(2, (b, h, nk, d))
-            bias = rand(3, bias_shape) if bias_shape else None
-            args = (q, k, v) if bias is None else (q, k, v, bias)
-            nums = tuple(range(len(args)))
-            gf = jax.grad(
-                lambda *a: jnp.sum(
-                    flash_attention(*a, mask_self=mask_self, block_q=32, interpret=True) ** 2
-                ),
-                argnums=nums,
-            )(*args)
-            gr = jax.grad(
-                lambda *a: jnp.sum(
-                    reference_attention(*a, mask_self=mask_self) ** 2
-                ),
-                argnums=nums,
-            )(*args)
-            for a, b_ in zip(gf, gr):
-                np.testing.assert_allclose(a, b_, atol=2e-4, rtol=1e-3)
+    @pytest.mark.parametrize("nq,nk,bias_shape,mask_self", [
+        (33, 33, (1, 1, 33, 33), False),  # bias shared by batch and heads
+        (64, 64, (1, 2, 64, 64), False),  # per-head bias
+        (40, 40, None, True),             # diagonal mask
+    ])
+    def test_flash_chunked_backward_matches_reference_vjp(self, nq, nk, bias_shape, mask_self):
+        b, h, d = 2, 2, 8
+        q, k, v = rand(0, (b, h, nq, d)), rand(1, (b, h, nk, d)), rand(2, (b, h, nk, d))
+        bias = rand(3, bias_shape) if bias_shape else None
+        args = (q, k, v) if bias is None else (q, k, v, bias)
+        f = lambda *a: ops.attention(*a, mask_self=mask_self)
+        out, vjp = jax.vjp(f, *args)
+        got = vjp(2 * out)
+        ref = np_attention_grads(q, k, v, bias, 2 * f64(out), mask_self=mask_self)
+        for a, r in zip(got, ref):
+            np.testing.assert_allclose(np.asarray(a), r, atol=2e-4, rtol=1e-3)
 
     def test_fused_mlp_grads_match_xla(self):
-        from vit_tpu.ops.fused_mlp import fused_mlp, reference_mlp
-
         x = rand(0, (2, 40, 64))
         w1, b1 = rand(1, (64, 128)) * 0.1, rand(2, (128,)) * 0.1
         w2, b2 = rand(3, (128, 64)) * 0.1, rand(4, (64,)) * 0.1
         g, bl = rand(5, (64,)), rand(6, (64,))
+        directional_check(ops.mlp, np_mlp, (x, w1, b1, w2, b2, g, bl))
 
-        def loss_pallas(*a):
-            return jnp.sum(fused_mlp(*a, interpret=True) ** 2)
 
-        def loss_xla(*a):
-            return jnp.sum(reference_mlp(*a) ** 2)
+class TestAttentionRoute:
+    """Which attention ``ops.attention``/``ops.qkv_attention`` run: cuDNN's
+    fused kernel only on a GPU and only for what it takes, the XLA path for
+    everything else — decided from dtype, shapes, bias, mask and scale."""
 
-        g1 = jax.grad(loss_pallas, argnums=tuple(range(7)))(x, w1, b1, w2, b2, g, bl)
-        g2 = jax.grad(loss_xla, argnums=tuple(range(7)))(x, w1, b1, w2, b2, g, bl)
-        for a, b_ in zip(g1, g2):
-            np.testing.assert_allclose(a, b_, atol=2e-3, rtol=2e-3)
+    @staticmethod
+    def _qkv(dtype=jnp.bfloat16, d=64, dv=None):
+        q = jnp.zeros((2, 4, 17, d), dtype)
+        return q, q, jnp.zeros((2, 4, 17, dv or d), dtype)
+
+    def test_cpu_backend_takes_xla(self):
+        assert jax.default_backend() == "cpu"
+        assert not uses_cudnn(*self._qkv())
+
+    @pytest.mark.parametrize("case,expect", [
+        ("bf16", True), ("fp16", True), ("fp32", False), ("bias", False),
+        ("mask_self", False), ("wide_dv", False), ("d12", False),
+        ("d256", False), ("traced_scale", False),
+    ])
+    def test_gpu_route(self, monkeypatch, case, expect):
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        kw, args = {}, self._qkv()
+        if case == "fp16":
+            args = self._qkv(jnp.float16)
+        elif case == "fp32":
+            args = self._qkv(jnp.float32)
+        elif case == "bias":
+            kw["bias"] = jnp.zeros((1, 4, 17, 17))
+        elif case == "mask_self":
+            kw["mask_self"] = True
+        elif case == "wide_dv":
+            args = self._qkv(dv=128)
+        elif case == "d12":
+            args = self._qkv(d=12)
+        elif case == "d256":
+            args = self._qkv(d=256)
+        elif case == "traced_scale":
+            kw["scale"] = jnp.float32(0.125)
+        assert uses_cudnn(*args, **kw) is expect
+
+    def test_cudnn_route_under_autodiff_is_the_reference(self, monkeypatch):
+        """Undifferentiated, the cuDNN route calls cuDNN (here a spy standing
+        in for it); differentiated, it runs the XLA path forward and back."""
+        from vitax.ops import attention_core
+
+        calls = []
+        xla_dpa = jax.nn.dot_product_attention
+        monkeypatch.setattr(
+            jax.nn, "dot_product_attention",
+            lambda q, k, v, scale=None, implementation=None: calls.append(implementation)
+            or xla_dpa(q, k, v, scale=scale, implementation="xla"),
+        )
+        q, k, v = rand(0, (2, 9, 3, 8)), rand(1, (2, 9, 3, 8)), rand(2, (2, 9, 3, 8))
+        attention_core._cudnn_bnhd(q, k, v, 0.3)
+        assert calls == ["cudnn"]
+        out, vjp = jax.vjp(lambda *a: attention_core._cudnn_bnhd(*a, 0.3), q, k, v)
+        assert calls == ["cudnn"]
+        t = lambda a: f64(a).transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(t(out), np_attention(t(q), t(k), t(v), scale=0.3), atol=2e-5)
+        got = vjp(2 * out)
+        ref = np_attention_grads(t(q), t(k), t(v), None, 2 * t(out), scale=0.3)
+        for a, r in zip(got, ref):
+            np.testing.assert_allclose(t(a), r, atol=1e-4, rtol=1e-4)
+
+    @pytest.mark.parametrize("shape,heads", [((3, 10, 3 * 4 * 8), 4), ((1, 197, 3 * 16 * 64), 16)])
+    def test_qkv_shapes_and_dtype(self, shape, heads):
+        qkv = rand(0, shape, jnp.bfloat16)
+        out = ops.qkv_attention(qkv, heads)
+        assert out.shape == (shape[0], shape[1], shape[2] // 3)
+        assert out.dtype == jnp.bfloat16
 
 
 class TestPatchOps:
@@ -445,7 +533,7 @@ class TestWindowOps:
     def test_window_partition_matches_einops(self):
         import einops
 
-        from vit_tpu.ops import window_partition, window_unpartition
+        from vitax.ops import window_partition, window_unpartition
 
         x = rand(0, (2, 8, 8, 5))
         out = window_partition(x, 4)
@@ -457,7 +545,7 @@ class TestWindowOps:
     def test_dilated_partition_matches_einops(self):
         import einops
 
-        from vit_tpu.ops import dilated_partition, dilated_unpartition
+        from vitax.ops import dilated_partition, dilated_unpartition
 
         x = rand(0, (2, 8, 8, 5))
         out = dilated_partition(x, 4)
@@ -467,7 +555,7 @@ class TestWindowOps:
         np.testing.assert_array_equal(np.asarray(back), np.asarray(x))
 
     def test_block_partition_roundtrip(self):
-        from vit_tpu.ops import block_partition, block_unpartition
+        from vitax.ops import block_partition, block_unpartition
 
         x = rand(0, (2, 8, 8, 3))
         out = block_partition(x, 2)
@@ -486,47 +574,25 @@ class TestWindowAttentionBlock:
         return xw, ln_s, ln_b, wqkv, wout, bout, bias, heads
 
     def test_matches_xla(self):
-        from vit_tpu.ops.window_attention import (
-            fused_window_attention_block, xla_window_attention_block)
-
         xw, ln_s, ln_b, wqkv, wout, bout, bias, heads = self._args()
-        out = fused_window_attention_block(
-            xw, ln_s, ln_b, wqkv, wout, bout, heads, bias, interpret=True)
-        ref = xla_window_attention_block(
-            xw, ln_s, ln_b, wqkv, wout, bout, heads, bias)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-4, rtol=2e-4)
+        out = ops.window_attention_block(xw, ln_s, ln_b, wqkv, wout, bout, heads, bias)
+        ref = np_window_block(xw, ln_s, ln_b, wqkv, wout, bout, heads, bias)
+        np.testing.assert_allclose(np.asarray(out), ref, atol=2e-4, rtol=2e-4)
 
     def test_no_bias_shared_bias_and_ragged_group(self):
-        from vit_tpu.ops.window_attention import (
-            fused_window_attention_block, xla_window_attention_block)
-
-        # nw=5 windows: group packing must handle non-divisible counts
         xw, ln_s, ln_b, wqkv, wout, bout, bias, heads = self._args(nw=5, s=16, c=32, d=16)
-        out = fused_window_attention_block(
-            xw, ln_s, ln_b, wqkv, wout, bout, heads, None, interpret=True)
-        ref = xla_window_attention_block(
-            xw, ln_s, ln_b, wqkv, wout, bout, heads, None)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-4, rtol=2e-4)
-
-        shared = bias[:1]  # (1, S, S) — one tile for all heads (quirks DPB)
-        out = fused_window_attention_block(
-            xw, ln_s, ln_b, wqkv, wout, bout, heads, shared, interpret=True)
-        ref = xla_window_attention_block(
-            xw, ln_s, ln_b, wqkv, wout, bout, heads, shared)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-4, rtol=2e-4)
+        for b in (None, bias[:1]):  # no bias; one (1, S, S) tile for all heads
+            out = ops.window_attention_block(xw, ln_s, ln_b, wqkv, wout, bout, heads, b)
+            ref = np_window_block(xw, ln_s, ln_b, wqkv, wout, bout, heads, b)
+            np.testing.assert_allclose(np.asarray(out), ref, atol=2e-4, rtol=2e-4)
 
     def test_grads_match_xla(self):
-        from vit_tpu.ops.window_attention import (
-            fused_window_attention_block, xla_window_attention_block)
-
         xw, ln_s, ln_b, wqkv, wout, bout, bias, heads = self._args(nw=2, s=9, c=16, d=8)
-        args = (xw, ln_s, ln_b, wqkv, wout, bout, bias)
-        g1 = jax.grad(lambda *a: jnp.sum(fused_window_attention_block(
-            *a[:6], heads, a[6], interpret=True) ** 2), argnums=tuple(range(7)))(*args)
-        g2 = jax.grad(lambda *a: jnp.sum(xla_window_attention_block(
-            *a[:6], heads, a[6]) ** 2), argnums=tuple(range(7)))(*args)
-        for a, b_ in zip(g1, g2):
-            np.testing.assert_allclose(a, b_, atol=2e-3, rtol=2e-3)
+        directional_check(
+            lambda *a: ops.window_attention_block(*a[:6], heads, a[6]),
+            lambda *a: np_window_block(*a[:6], heads, a[6]),
+            (xw, ln_s, ln_b, wqkv, wout, bout, bias),
+        )
 
 
 class TestReattentionBlock:
@@ -542,30 +608,17 @@ class TestReattentionBlock:
 
     @pytest.mark.parametrize("n", [50, 64, 65])
     def test_matches_xla(self, n):
-        from vit_tpu.ops.reattention_block import (
-            fused_reattention_block, xla_reattention_block)
-
         args = self._args(2, n, 48, 3, 16)
-        out = fused_reattention_block(*args, 3, interpret=True)
-        ref = xla_reattention_block(*args, 3, 16**-0.5)
+        out = ops.reattention_block(*args, 3)
         assert out.shape == args[0].shape
-        np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(out, np_reattention_block(*args, 3), atol=1e-4, rtol=1e-4)
 
     def test_grads_match_xla(self):
-        from vit_tpu.ops.reattention_block import (
-            fused_reattention_block, xla_reattention_block)
-
         args = self._args(2, 33, 32, 2, 16)
-        nums = tuple(range(9))
-        gf = jax.grad(lambda *a: jnp.sum(
-            fused_reattention_block(*a, 2, interpret=True) ** 2), argnums=nums)(*args)
-        gr = jax.grad(lambda *a: jnp.sum(
-            xla_reattention_block(*a, 2, 16**-0.5) ** 2), argnums=nums)(*args)
-        for a, b in zip(gf, gr):
-            scale = max(1.0, float(np.max(np.abs(np.asarray(b)))))
-            np.testing.assert_allclose(
-                np.asarray(a) / scale, np.asarray(b) / scale, atol=1e-4
-            )
+        directional_check(
+            lambda *a: ops.reattention_block(*a, 2),
+            lambda *a: np_reattention_block(*a, 2), args,
+        )
 
 
 class TestTalkingHeadsBlock:
@@ -581,155 +634,15 @@ class TestTalkingHeadsBlock:
 
     @pytest.mark.parametrize("n,residual", [(50, False), (64, True), (65, False)])
     def test_matches_xla(self, n, residual):
-        from vit_tpu.ops.reattention_block import (
-            fused_talking_heads_block, xla_talking_heads_block)
-
         args = self._args(2, n, 48, 3, 16)
-        out = fused_talking_heads_block(*args, 3, residual=residual, interpret=True)
-        ref = xla_talking_heads_block(*args, 3, 16**-0.5, residual=residual)
+        out = ops.talking_heads_block(*args, 3, residual=residual)
         assert out.shape == args[0].shape
+        ref = np_talking_heads_block(*args, 3, residual=residual)
         np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
 
     def test_grads_match_xla(self):
-        from vit_tpu.ops.reattention_block import (
-            fused_talking_heads_block, xla_talking_heads_block)
-
         args = self._args(2, 33, 32, 2, 16)
-        nums = tuple(range(8))
-        gf = jax.grad(lambda *a: jnp.sum(
-            fused_talking_heads_block(*a, 2, interpret=True) ** 2), argnums=nums)(*args)
-        gr = jax.grad(lambda *a: jnp.sum(
-            xla_talking_heads_block(*a, 2, 16**-0.5) ** 2), argnums=nums)(*args)
-        for a, b in zip(gf, gr):
-            scale = max(1.0, float(np.max(np.abs(np.asarray(b)))))
-            np.testing.assert_allclose(
-                np.asarray(a) / scale, np.asarray(b) / scale, atol=1e-4
-            )
-
-
-class TestAttentionBlockDispatch:
-    """The auto rule dispatches on the width the kernel would PROCESS:
-    a pre-padded stream (true_n set, whole-encoder padding) hands the
-    kernel an aligned width with no pad copies, so the README-scale
-    65-token stack (padded to 80) takes the kernel — measured +6.4%
-    whole-model (scripts/tune_zoo_tail_r4.py, round 4)."""
-
-    def _spy(self, monkeypatch):
-        import vit_tpu.ops as ops_mod
-
-        calls = []
-        zero = lambda *a, **k: calls.append("kernel") or jnp.zeros(())
-        zero_x = lambda *a, **k: calls.append("xla") or jnp.zeros(())
-        monkeypatch.setattr(ops_mod, "fused_attention_block", zero)
-        monkeypatch.setattr(ops_mod, "xla_attention_block", zero_x)
-        # auto mode resolves to pallas only on TPU; fake the backend so the
-        # rule itself is what's under test
-        monkeypatch.setattr(ops_mod.jax, "default_backend", lambda: "tpu")
-        monkeypatch.delenv("VIT_TPU_BACKEND", raising=False)
-        return ops_mod, calls
-
-    def _args(self, n, dim=64, heads=4, d=16):
-        x = rand(0, (2, n, dim))
-        return (x, rand(1, (dim,)), rand(2, (dim,)),
-                rand(3, (dim, 3 * heads * d)), rand(4, (heads * d, dim)),
-                rand(5, (dim,)), heads)
-
-    def test_padded_stream_takes_kernel(self, monkeypatch):
-        ops_mod, calls = self._spy(monkeypatch)
-        ops_mod.attention_block(*self._args(80), true_n=65)
-        assert calls == ["kernel"]
-
-    def test_unpadded_unaligned_mid_bucket_stays_xla(self, monkeypatch):
-        ops_mod, calls = self._spy(monkeypatch)
-        ops_mod.attention_block(*self._args(65))
-        assert calls == ["xla"]
-
-    def test_small_padded_width_stays_xla(self, monkeypatch):
-        # aligned but below the measured kernel floor (n=48 < 64)
-        ops_mod, calls = self._spy(monkeypatch)
-        ops_mod.attention_block(*self._args(48), true_n=40)
-        assert calls == ["xla"]
-
-
-class TestPackedAttentionBlock:
-    """Sample-packed streams (Transformer.auto_pad pack-2): k samples per
-    batch row at stride ``block_tokens``, block-diagonal attention mask.
-    Real-token outputs must match the per-sample unpacked computation in
-    BOTH backends (round 4; measurements/r4/zoo_scan_r4.log)."""
-
-    def _setup(self, b=4, n=13, stride=16, dim=32, heads=2, d=16):
-        from vit_tpu.ops.block_attention import xla_attention_block
-
-        x = rand(0, (b, n, dim))
-        ln_s, ln_b = rand(1, (dim,)) * 0.1 + 1.0, rand(2, (dim,)) * 0.1
-        wqkv = rand(3, (dim, 3 * heads * d)) * 0.1
-        wout = rand(4, (heads * d, dim)) * 0.1
-        bout = rand(5, (dim,)) * 0.1
-        scale = d**-0.5
-        # unpacked golden: each sample computed solo, no padding at all
-        gold = xla_attention_block(x, ln_s, ln_b, wqkv, wout, bout, heads, scale)
-        # packed layout: pad each sample to `stride`, two per row
-        xp = jnp.pad(x, ((0, 0), (0, stride - n), (0, 0)))
-        xp = xp.reshape(b // 2, 2 * stride, dim)
-        args = (xp, ln_s, ln_b, wqkv, wout, bout, heads)
-        return args, dict(scale=scale, true_n=n), gold, (b, stride, n, dim)
-
-    def _unpack(self, out, shape):
-        b, stride, n, dim = shape
-        return out.reshape(b, stride, dim)[:, :n]
-
-    def test_xla_backend_matches_unpacked(self):
-        from vit_tpu.ops.block_attention import xla_attention_block
-
-        args, kw, gold, shape = self._setup()
-        out = xla_attention_block(
-            *args, kw["scale"], 1e-6, kw["true_n"], 16
+        directional_check(
+            lambda *a: ops.talking_heads_block(*a, 2),
+            lambda *a: np_talking_heads_block(*a, 2), args,
         )
-        np.testing.assert_allclose(
-            self._unpack(out, shape), gold, atol=1e-5, rtol=1e-5
-        )
-
-    def test_kernel_matches_unpacked(self):
-        from vit_tpu.ops.block_attention import fused_attention_block
-
-        args, kw, gold, shape = self._setup()
-        out = fused_attention_block(
-            *args, scale=kw["scale"], true_n=kw["true_n"], block_tokens=16,
-            interpret=True,
-        )
-        np.testing.assert_allclose(
-            self._unpack(out, shape), gold, atol=1e-5, rtol=1e-5
-        )
-
-    def test_transformer_auto_pack_parity(self):
-        """f32, n=17 (pad-8 would cost 24 rows; packed stride 20): the stack
-        must auto-pack and produce the same real-row outputs as the
-        unpadded straight-line computation."""
-        from vit_tpu.nn.blocks import Transformer
-
-        b, n, dim = 4, 17, 32
-        x = rand(0, (b, n, dim))
-        mk = lambda auto_pad: Transformer(
-            dim=dim, depth=5, heads=2, dim_head=16, mlp_dim=64,
-            auto_pad=auto_pad,
-        )
-        v = mk(True).init({"params": jax.random.PRNGKey(1)}, x)
-        packed = mk(True).apply(v, x)
-        plain = mk(False).apply(v, x)
-        assert packed.shape == (b, n, dim)
-        np.testing.assert_allclose(packed, plain, atol=1e-5, rtol=1e-5)
-
-    def test_transformer_training_mode_skips_pack(self):
-        """Stochastic passes keep the per-sample padded layout (per-sample
-        gates must not see packed pairs); shapes and finiteness only."""
-        from vit_tpu.nn.blocks import Transformer
-
-        b, n, dim = 4, 17, 32
-        x = rand(0, (b, n, dim))
-        t = Transformer(dim=dim, depth=2, heads=2, dim_head=16, mlp_dim=64,
-                        dropout=0.1)
-        v = t.init({"params": jax.random.PRNGKey(1)}, x)
-        out = t.apply(v, x, deterministic=False,
-                      rngs={"dropout": jax.random.PRNGKey(2)})
-        assert out.shape == (b, n, dim)
-        assert bool(jnp.isfinite(out).all())

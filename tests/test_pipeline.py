@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vit_tpu.models import ViT
-from vit_tpu.parallel.pipeline import (
+from vitax.models import ViT
+from vitax.parallel.pipeline import (
     make_pipeline_mesh,
     pipeline_vit_apply,
     spmd_pipeline,
@@ -107,10 +107,8 @@ def test_spmd_pipeline_generic_blocks():
 
 
 def test_pipeline_qkv_bias_model_matches_single_device():
-    """The HF/timm-imported config (qkv_bias=True) must pipeline too: its
-    flax attention path doesn't mask padded key columns, so the wrapper
-    must skip the sublane pad exactly like Transformer.auto_pad does
-    (regression: it used to pad unconditionally and crash)."""
+    """The HF/timm-imported config (qkv_bias=True, the flax-submodule
+    attention layout) pipelines too and matches the single-device forward."""
     model = ViT(image_size=32, patch_size=8, num_classes=10, dim=64, depth=4,
                 heads=4, mlp_dim=128, dim_head=16, qkv_bias=True)
     img = jax.random.normal(jax.random.PRNGKey(0), (8, 32, 32, 3))
@@ -130,7 +128,7 @@ def test_pipeline3d_dp_pp_tp_matches_single_device():
     unpipelined single-device apply, and the compiled HLO must carry BOTH
     collective classes: the pipe ppermute (collective-permute) and the
     tp reduction (all-reduce)."""
-    from vit_tpu.parallel.pipeline import (
+    from vitax.parallel.pipeline import (
         make_pipeline3d_mesh,
         pipeline_tp_vit_apply,
     )
@@ -165,7 +163,7 @@ def test_pipeline3d_head_sharding_is_whole_heads():
     with model=4 and 4 heads each shard owns one head, and the result
     still matches the unpipelined apply (a wrong column split would mix
     q/k/v sections and diverge wildly)."""
-    from vit_tpu.parallel.pipeline import (
+    from vitax.parallel.pipeline import (
         make_pipeline3d_mesh,
         pipeline_tp_vit_apply,
     )
@@ -185,7 +183,7 @@ def test_pipeline3d_gradients_match_unpipelined():
     single-device gradients: the GPipe scan, the stage ppermute, and the
     Megatron psums all transpose correctly, so the 3D path is trainable
     as-is (measured 4e-6 max leaf error on first run)."""
-    from vit_tpu.parallel.pipeline import (
+    from vitax.parallel.pipeline import (
         make_pipeline3d_mesh,
         pipeline_tp_vit_apply,
     )
@@ -216,11 +214,11 @@ def test_pipeline3d_gradients_match_unpipelined():
 def test_pipeline3d_train_step_learns():
     """The packaged 3D train step (optimizer included) drives the loss down
     on a fixed batch through the dp x pp x tp forward/backward."""
-    from vit_tpu.parallel.pipeline import (
+    from vitax.parallel.pipeline import (
         make_pipeline3d_mesh,
         make_pipeline3d_train_step,
     )
-    from vit_tpu.train import create_train_state, make_optimizer
+    from vitax.train import create_train_state, make_optimizer
 
     variables, img = _init(batch=8)
     labels = jnp.arange(8) % 10

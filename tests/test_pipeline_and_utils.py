@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from vit_tpu.models import ViT
-from vit_tpu.pipeline import InferencePipeline, center_crop, preprocess
+from vitax.models import ViT
+from vitax.pipeline import InferencePipeline, center_crop, preprocess
 
 MODEL = ViT(image_size=32, patch_size=8, num_classes=10, dim=64, depth=1,
             heads=4, mlp_dim=128, dim_head=16)
@@ -65,7 +65,7 @@ def test_aot_export_roundtrip():
     weights baked in, reload it from bytes, and serve — logits must match
     the live InferencePipeline, including ragged batches (bucket padding)
     and batches beyond the largest bucket (chunking)."""
-    from vit_tpu.utils.aot import ExportedServing, export_serving
+    from vitax.utils.aot import ExportedServing, export_serving
 
     variables = _variables()
     blob = export_serving(MODEL, variables, image_size=32,
@@ -84,7 +84,7 @@ def test_aot_export_roundtrip():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from vit_tpu.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from vitax.utils.checkpoint import restore_checkpoint, save_checkpoint
 
     variables = _variables()
     path = str(tmp_path / "ckpt")
@@ -95,7 +95,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_cost_analysis_reports_flops():
-    from vit_tpu.utils.profiling import cost_analysis
+    from vitax.utils.profiling import cost_analysis
 
     variables = _variables()
     img = jnp.ones((4, 32, 32, 3))
@@ -104,7 +104,7 @@ def test_cost_analysis_reports_flops():
 
 
 def test_benchmark_timer():
-    from vit_tpu.utils.profiling import benchmark
+    from vitax.utils.profiling import benchmark
 
     variables = _variables()
     img = jnp.ones((4, 32, 32, 3))
@@ -114,7 +114,7 @@ def test_benchmark_timer():
 
 
 def test_health_probe_and_retry():
-    from vit_tpu.utils import probe_devices, with_retry
+    from vitax.utils import probe_devices, with_retry
 
     report = probe_devices()
     assert report["ok"] and report["devices"] == 8
@@ -132,7 +132,7 @@ def test_health_probe_and_retry():
 
 
 def test_checked_catches_nan():
-    from vit_tpu.utils import checked
+    from vitax.utils import checked
 
     def bad(x):
         return jnp.log(x)  # NaN for negative input
@@ -145,8 +145,8 @@ def test_checked_catches_nan():
 
 
 def test_train_state_checkpoint_roundtrip(tmp_path):
-    from vit_tpu.train import create_train_state
-    from vit_tpu.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from vitax.train import create_train_state
+    from vitax.utils.checkpoint import restore_checkpoint, save_checkpoint
 
     img = jnp.ones((1, 32, 32, 3))
     state = create_train_state(MODEL, jax.random.PRNGKey(0), img)
@@ -163,7 +163,7 @@ def test_train_state_checkpoint_roundtrip(tmp_path):
 def test_registry_covers_all_18_families():
     # 17 reference model families + the dependency-injected shell
     # (efficient.py), all constructible from the registry.
-    from vit_tpu.models import MODEL_REGISTRY
+    from vitax.models import MODEL_REGISTRY
 
     assert len(MODEL_REGISTRY) == 18
     assert "efficient" in MODEL_REGISTRY
@@ -191,7 +191,7 @@ class TestJpegDecode:
     def test_native_decode_matches_pil(self):
         """The native libjpeg decode must match PIL's (same libjpeg) and the
         resize must match the numpy mirror of the kernel's math."""
-        from vit_tpu.data import JpegDecoder, _resize_bilinear_u8
+        from vitax.data import JpegDecoder, _resize_bilinear_u8
         from PIL import Image
         import io as _io
 
@@ -217,7 +217,7 @@ class TestJpegDecode:
         from PIL import Image
         import io as _io
 
-        from vit_tpu.data import JpegDecoder
+        from vitax.data import JpegDecoder
 
         exact = JpegDecoder(size=96)
         fast = JpegDecoder(size=96, fast=True)
@@ -243,7 +243,7 @@ class TestJpegDecode:
         assert np.abs(a - b).max() < 64
 
     def test_corrupt_jpeg_reported(self):
-        from vit_tpu.data import JpegDecoder
+        from vitax.data import JpegDecoder
 
         dec = JpegDecoder(size=64)
         if dec.backend != "native":
@@ -255,7 +255,7 @@ class TestJpegDecode:
     def test_jpeg_to_logits_end_to_end(self):
         """The north-star data path: JPEG bytes -> host decode -> device
         resize/crop/normalize fused with the model -> logits."""
-        from vit_tpu.data import JpegDecoder, classify_jpegs
+        from vitax.data import JpegDecoder, classify_jpegs
 
         jpegs, _ = self._jpegs(n=3)
         pipe = InferencePipeline(MODEL, _variables(), image_size=32, batch_size=4,
@@ -274,9 +274,9 @@ def test_classify_jpeg_stream_matches_batchwise():
     from PIL import Image
 
     import jax.numpy as jnp
-    from vit_tpu.data import JpegDecoder, classify_jpeg_stream, classify_jpegs
-    from vit_tpu.models import ViT
-    from vit_tpu.pipeline import InferencePipeline
+    from vitax.data import JpegDecoder, classify_jpeg_stream, classify_jpegs
+    from vitax.models import ViT
+    from vitax.pipeline import InferencePipeline
 
     rng = np.random.default_rng(0)
     def jpeg(i):
@@ -316,7 +316,7 @@ class TestJpegFolderDataset:
         return samples
 
     def test_epoch_covers_every_sample_once_and_shapes(self):
-        from vit_tpu.data import JpegFolderDataset
+        from vitax.data import JpegFolderDataset
 
         ds = JpegFolderDataset(self._samples(12), batch_size=4, size=32, seed=3)
         assert len(ds) == 3
@@ -329,7 +329,7 @@ class TestJpegFolderDataset:
         assert sorted(seen) == list(range(12))
 
     def test_shuffle_deterministic_per_epoch_and_varies_across(self):
-        from vit_tpu.data import JpegFolderDataset
+        from vitax.data import JpegFolderDataset
 
         ds = JpegFolderDataset(self._samples(12), batch_size=12, size=32, seed=3)
         l0a = np.asarray(next(iter(ds.epoch(0)))[1])
@@ -339,7 +339,7 @@ class TestJpegFolderDataset:
         assert not np.array_equal(l0a, l1)
 
     def test_prefetch_matches_sync_and_paths_work(self, tmp_path):
-        from vit_tpu.data import JpegFolderDataset
+        from vitax.data import JpegFolderDataset
 
         samples = self._samples(8)
         # half as files on disk (lazy read on the decode thread)
@@ -359,7 +359,7 @@ class TestJpegFolderDataset:
             np.testing.assert_array_equal(np.asarray(la), np.asarray(lb))
 
     def test_decode_error_propagates(self):
-        from vit_tpu.data import JpegFolderDataset
+        from vitax.data import JpegFolderDataset
 
         bad = [(b"not a jpeg", 0)] * 4
         ds = JpegFolderDataset(bad, batch_size=4, size=32)
@@ -367,7 +367,7 @@ class TestJpegFolderDataset:
             list(ds.epoch(0))
 
     def test_drop_remainder_and_epochs(self):
-        from vit_tpu.data import JpegFolderDataset
+        from vitax.data import JpegFolderDataset
 
         ds = JpegFolderDataset(self._samples(10), batch_size=4, size=32)
         assert len(ds) == 2  # 10 // 4, short batch dropped
@@ -379,8 +379,8 @@ class TestJpegFolderDataset:
         """mesh= yields batches already laid out P('data') — the exact
         sharding make_train_step consumes, so the step never repartitions
         its input. Values must match the unsharded dataset bitwise."""
-        from vit_tpu.data import JpegFolderDataset
-        from vit_tpu.parallel import make_mesh
+        from vitax.data import JpegFolderDataset
+        from vitax.parallel import make_mesh
 
         mesh = make_mesh(n_data=4, n_model=2, devices=jax.devices()[:8])
         samples = self._samples(8)
@@ -402,7 +402,7 @@ class TestJpegFolderDataset:
         """Workers with the same seed and disjoint shard indices cover
         every sample exactly once per epoch, and a worker's membership
         reshuffles across epochs (shard AFTER shuffle)."""
-        from vit_tpu.data import JpegFolderDataset
+        from vitax.data import JpegFolderDataset
 
         samples = self._samples(12)
 
@@ -436,7 +436,7 @@ def test_jpeg_folder_dataset_abandoned_epoch_stops_producer():
     import threading
     import time
 
-    from vit_tpu.data import JpegFolderDataset
+    from vitax.data import JpegFolderDataset
 
     samples = TestJpegFolderDataset()._samples(12)
     ds = JpegFolderDataset(samples, batch_size=2, size=32, prefetch=True)
@@ -463,7 +463,7 @@ def test_preprocess_preserves_aspect_ratio():
     img = jnp.asarray(raw, jnp.float32) / 255.0
     ref = jax.image.resize(img, (1, 36, 72, 3), method="bilinear")
     ref = ref[:, 2:34, 20:52, :]
-    from vit_tpu.pipeline import normalize
+    from vitax.pipeline import normalize
 
     np.testing.assert_allclose(
         np.asarray(out), np.asarray(normalize(ref, dtype=jnp.float32)),
@@ -493,16 +493,16 @@ def test_pipeline_empty_batch():
 def test_exported_serving_rejects_garbage_with_value_error():
     import pytest
 
-    from vit_tpu.utils.aot import ExportedServing
+    from vitax.utils.aot import ExportedServing
 
-    with pytest.raises(ValueError, match="not a vit_tpu AOT"):
+    with pytest.raises(ValueError, match="not a vitax AOT"):
         ExportedServing(b"definitely not a zip")
 
 
 def test_train_step_donate_runs():
     """donate=True (examples/train.py's setting) must step normally when
     the caller overwrites state."""
-    from vit_tpu.train import create_train_state, make_train_step
+    from vitax.train import create_train_state, make_train_step
 
     model = MODEL
     imgs = jnp.ones((4, 32, 32, 3))
@@ -515,7 +515,7 @@ def test_train_step_donate_runs():
 
 
 def test_evaluate_caches_eval_step():
-    from vit_tpu import train as train_mod
+    from vitax import train as train_mod
 
     variables = _variables()
     imgs = jnp.ones((2, 32, 32, 3))
@@ -532,7 +532,7 @@ def test_pipeline_explicit_buckets_honored_under_mesh():
     """An explicit batch_buckets list survives a mesh (the caller owns
     divisibility); only the DEFAULT derivation collapses to the single
     fixed-batch program under a mesh."""
-    from vit_tpu.parallel.mesh import make_mesh
+    from vitax.parallel.mesh import make_mesh
 
     mesh = make_mesh()
     v = _variables()

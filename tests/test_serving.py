@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vit_tpu.data import JpegDecoder
-from vit_tpu.models import ViT
-from vit_tpu.pipeline import InferencePipeline
-from vit_tpu.serving import BatchingServer
+from vitax.data import JpegDecoder
+from vitax.models import ViT
+from vitax.pipeline import InferencePipeline
+from vitax.serving import BatchingServer
 
 
 def _pipeline(batch_size=4):
@@ -157,8 +157,8 @@ def test_multichip_serving_dp_mesh_parity_and_sharding():
     single-device pipeline bit-for-tolerance."""
     from jax.sharding import PartitionSpec as P
 
-    from vit_tpu.parallel import make_mesh
-    from vit_tpu.parallel.mesh import DATA_AXIS
+    from vitax.parallel import make_mesh
+    from vitax.parallel.mesh import DATA_AXIS
 
     model = ViT(image_size=32, patch_size=8, num_classes=10, dim=64, depth=1,
                 heads=2, dim_head=32, mlp_dim=128)
